@@ -3,21 +3,12 @@
 Example 05: sharding rays over a device mesh.
 
 One flag shards the ray batch across every local device; detector images
-and counters psum-reduce over the interconnect. On a single-device machine
-this example demonstrates the API with a virtual CPU mesh.
+and counters psum-reduce over the interconnect. With a single device the
+same config runs unsharded. To try the mesh on a CPU, start Python with
+``XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu``.
 """
 
 import jax
-
-# For the demo: build a virtual 8-device CPU mesh. On a real multi-chip
-# machine or pod slice, delete these lines — the mesh then spans the real
-# devices. (Both settings must run before any JAX operation.)
-try:
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_num_cpu_devices", 8)
-except RuntimeError:
-    pass  # backend already initialized; use whatever devices exist
-
 import numpy as np
 
 import xicsrt_tpu
@@ -26,7 +17,7 @@ config = {
     "general": {
         "number_of_iter": 2,
         "random_seed": 0,
-        "shard_rays": True,       # <- the only change vs a single-chip run
+        "shard_rays": True,       # <- the only change vs a one-device run
     },
     "sources": {
         "source": {

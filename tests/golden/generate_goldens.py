@@ -79,8 +79,8 @@ def _with_crystal(_drop=(), _intensity=None, **crystal_overrides):
 SCENARIOS = {
     # Exercises the quartic torus solver (reference _ShapeTorus.py:110-183).
     # Wider rocking curve + 4x rays: the stock 48-urad width accepts only
-    # ~16 of 1e6 rays, leaving the image comparison statistically vacuous
-    # (ADVICE r1); same solver path, ~5000 counts.
+    # ~16 of 1e6 rays, leaving the image comparison statistically vacuous;
+    # same solver path, ~5000 counts.
     "torus": _with_crystal(
         _drop=("radius",),
         class_name="XicsrtOpticToroidalCrystal",
@@ -243,7 +243,7 @@ def generate_gradient_params_golden():
 def generate_gradient_pixel_golden():
     """Finite-difference the reference's DETECTOR IMAGE (superpixel level).
 
-    BASELINE.json's metric is "detector image + pixel-grad allclose": the
+    BASELINE.md's metric is "detector image + pixel-grad allclose": the
     scalar-efficiency goldens above constrain gradient magnitude only. This
     golden central-differences the [100, 50] reference image coarsened to
     [10, 10] superpixels (the same coarsening as the image-parity tests)

@@ -2,10 +2,10 @@
 
 The differentiable image path must produce identical values AND gradients
 whether it runs through the scatter splat (``bin_image_bilinear``, the CPU
-fallback with autodiff through ``.at[].add``) or the MXU tent contraction
-with the hand-written backward (``_tent_images``). The custom backward is
-what keeps fwd+bwd fast on TPU: it stores only O(N) residuals instead of
-the O(N * (nx + ny)) tent matrices autodiff would save.
+route with autodiff through ``.at[].add``) or the tent contraction with the
+hand-written backward (``_tent_images``, the GPU route). The custom
+backward stores only O(N) residuals instead of the O(N * (nx + ny)) tent
+matrices autodiff would save.
 """
 
 import numpy as np

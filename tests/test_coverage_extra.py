@@ -314,7 +314,7 @@ class TestProfiler:
         text = profiler.report()
         assert "pipeline_build" in text
         assert "raytrace_run" in text
-        # Engine-path spans added for VERDICT r1 item 8.
+        # Engine-path spans.
         assert "build_runner" in text
         assert "sort_history" in text
         assert "combine_raytrace" in text

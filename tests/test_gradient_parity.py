@@ -144,7 +144,7 @@ def test_gradient_parity_vs_reference():
                     reason="golden data missing")
 @pytest.mark.parametrize("pname", ["origin_y", "crystal_spacing"])
 def test_gradient_parity_pixel_field(pname):
-    """PIXEL-LEVEL gradient parity (BASELINE.json "pixel-grad allclose").
+    """PIXEL-LEVEL gradient parity (BASELINE.md "pixel-gradient allclose").
 
     The golden central-differences the reference's [100, 50] detector image
     coarsened to [10, 10] superpixels w.r.t. the crystal parameter. Here the

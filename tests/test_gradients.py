@@ -1,5 +1,5 @@
 """Differentiable-raytracing tests: finite-difference gradient checks and an
-end-to-end alignment recovery (the BASELINE.json differentiable-alignment
+end-to-end alignment recovery (the BASELINE.md differentiable-alignment
 configuration)."""
 
 import numpy as np
@@ -129,7 +129,7 @@ class TestGradientCorrectness:
 class TestAlignment:
     def test_recover_crystal_spacing(self):
         """Differentiable alignment: recover a perturbed d-spacing from the
-        target detector image (BASELINE.json configs item 5)."""
+        target detector image (BASELINE.md target)."""
         true_config = _bragg_config(num_iter=1, intensity=50000)
         image_fn, pipeline = make_differentiable(true_config)
         key = jax.random.key(7)

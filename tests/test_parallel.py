@@ -206,95 +206,9 @@ class TestShardedPlasma:
         assert pipeline.num_rays < single.num_rays / 4
 
 
-class TestShardedFused:
-    """Fused Pallas engine x ray-sharded mesh composition (round-2 verdict
-    #3): the megakernel runs per device under shard_map (InterpretParams on
-    the CPU mesh) with psum-reduced counts/images."""
-
-    def _config(self, intensity, **general):
-        g = {"number_of_iter": 1, "random_seed": 0, "keep_history": False,
-             "print_results": False, "engine": "fused"}
-        g.update(general)
-        return {
-            "general": g,
-            "sources": {"source": {
-                "class_name": "XicsrtSourceDirected",
-                "intensity": intensity,
-                "wavelength": 3.9492,
-                "angular_dist": "isotropic_xy",
-                "spread": np.radians(10.0),
-            }},
-            "optics": {
-                "crystal": {
-                    "class_name": "XicsrtOpticSphericalCrystal",
-                    "origin": [0.0, 0.0, 0.80374151],
-                    "zaxis": [0.0, 0.59497864, -0.80374151],
-                    "xsize": 0.2, "ysize": 0.2, "radius": 1.0,
-                    "crystal_spacing": 2.45676,
-                    "rocking_type": "gaussian",
-                    "rocking_fwhm": 150e-6,
-                },
-                "detector": {
-                    "class_name": "XicsrtOpticDetector",
-                    "origin": [0.0, 0.76871290, 0.56904832],
-                    "zaxis": [0.0, -0.95641806, 0.29200084],
-                    "xsize": 0.4, "ysize": 0.2,
-                },
-            },
-        }
-
-    def test_fused_sharded_totals(self, eight_devices):
-        n = 8 * 4096
-        fn, pipeline, mesh = make_sharded_run(self._config(n), n_devices=8)
-        out = fn(pipeline.params, jax.random.key(0))
-        assert np.asarray(out["meta"]["source"]).item() == n
-        n_det = np.asarray(out["meta"]["detector"]).item()
-        assert n_det > 0
-        np.testing.assert_allclose(
-            np.asarray(out["image"]["detector"]).sum(), n_det)
-
-    def test_fused_sharded_matches_xla_sharded(self, eight_devices):
-        n = 8 * 8192
-        fn_f, pipe_f, _ = make_sharded_run(self._config(n), n_devices=8)
-        out_f = fn_f(pipe_f.params, jax.random.key(0))
-        fn_x, pipe_x, _ = make_sharded_run(
-            self._config(n, engine="xla"), n_devices=8)
-        out_x = fn_x(pipe_x.params, jax.random.key(1))
-        k_f = np.asarray(out_f["meta"]["detector"]).item()
-        k_x = np.asarray(out_x["meta"]["detector"]).item()
-        p = (k_f + k_x) / (2.0 * n)
-        sigma = np.sqrt(max(2.0 * n * p * (1.0 - p), 1.0))
-        assert abs(k_f - k_x) < 5 * sigma, (k_f, k_x)
-
-    def test_fused_sharded_devices_differ(self, eight_devices):
-        """Per-device seeds differ: the psum-reduced image is not 8x a
-        single-device image (distinct hardware-PRNG streams)."""
-        n = 8 * 4096
-        fn, pipeline, _ = make_sharded_run(self._config(n), n_devices=8)
-        out1 = fn(pipeline.params, jax.random.key(0))
-        out2 = fn(pipeline.params, jax.random.key(1))
-        img1 = np.asarray(out1["image"]["detector"])
-        img2 = np.asarray(out2["image"]["detector"])
-        assert not np.array_equal(img1, img2)
-
-    def test_fused_sharded_rejects_stale_params(self, eight_devices):
-        import jax.numpy as jnp
-
-        fn, pipeline, _ = make_sharded_run(
-            self._config(8 * 1024), n_devices=8)
-        mutated = jax.tree_util.tree_map(lambda x: x, pipeline.params)
-        mutated["optics"]["crystal"]["crystal_spacing"] = jnp.asarray(2.5)
-        with pytest.raises(ValueError, match="bakes geometry"):
-            fn(mutated, jax.random.key(0))
-
-    def test_auto_falls_back_with_history(self, eight_devices):
-        config = self._config(8 * 1024, engine="auto", keep_history=True)
-        fn, pipeline, _ = make_sharded_run(config, n_devices=8)
-        out = fn(pipeline.params, jax.random.key(0))
-        assert out["history"]["detector"].origin.shape[0] == 8 * 1024
-
-
 class TestBinningTPU:
+    """Binning on the GPU route, run here with ``platform='gpu'``."""
+
     def _random_hits(self, n=1 << 16, seed=0):
         import jax.numpy as jnp
 
@@ -305,58 +219,31 @@ class TestBinningTPU:
         w = jnp.ones((n,))
         return xl, mask, w
 
-    def test_pallas_binning_matches_reference_impl(self):
-        """Pallas histogram kernel == scatter reference.
-
-        Runs compiled on TPU; through the Pallas interpreter on CPU, so the
-        kernel logic is exercised in every test run (VERDICT r1 weak #2).
-        """
-        import jax.numpy as jnp
-
-        from xicsrt_tpu.ops.binning import bin_image
-        from xicsrt_tpu.ops.pallas_binning import bin_image_pallas
-
-        interpret = jax.default_backend() == "cpu"
-        xl, mask, w = self._random_hits()
-        a = bin_image(xl, mask, w, 100, 50, 0.002)
-        b = bin_image_pallas(xl, mask, w, 100, 50, 0.002,
-                             interpret=interpret)
-        assert bool(jnp.all(a == b))
-
     def test_fused_binning_impl_and_dtype_options(self):
-        """impl='pallas' and op_dtype='bfloat16' route and stay exact for
-        unit weights (0/1 one-hot entries are bf16-representable)."""
-        import jax.numpy as jnp
-
+        """The GPU route (chunked one-hot product) with f32 and bf16
+        operands stays exact for unit weights (0/1 one-hot entries are
+        bf16-representable)."""
         from xicsrt_tpu.ops.binning import bin_image, bin_images_fused
 
         xl, mask, w = self._random_hits(n=5000)
         ref = bin_image(xl, mask, w, 40, 20, 0.005)
         items = [(xl, mask, w, 40, 20, 0.005)]
-        if jax.default_backend() == "cpu":
-            # CPU routes to scatter regardless of impl; exercise the matmul
-            # path directly with bf16 operands.
-            from xicsrt_tpu.ops.binning import bin_image_matmul
-
-            out = bin_image_matmul(xl, mask, w, 40, 20, 0.005)
+        for kwargs in ({}, {"op_dtype": "bfloat16"}):
+            (out,) = bin_images_fused(items, "nearest", platform="gpu",
+                                      **kwargs)
             np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-        else:
-            for kwargs in ({"impl": "pallas"}, {"op_dtype": "bfloat16"}):
-                (out,) = bin_images_fused(items, "nearest", **kwargs)
-                np.testing.assert_array_equal(
-                    np.asarray(out), np.asarray(ref)
-                )
 
     def test_engine_binning_config_routes(self):
-        """general.binning/binning_dtype reach the fused binning call."""
+        """general.binning_dtype reaches the binning call of both routes."""
         config = _config(intensity=2000, num_iter=1,
-                         binning="xla", binning_dtype="bfloat16")
-        pipeline = Pipeline(config)
-        out = jax.jit(pipeline.make_iteration())(
-            pipeline.params, jax.random.key(0)
-        )
-        total = np.asarray(out["image"]["detector"]).sum()
-        assert total == np.asarray(out["meta"]["detector"]).item()
+                         binning_dtype="bfloat16")
+        for platform in ("cpu", "gpu"):
+            pipeline = Pipeline(config, platform=platform)
+            out = jax.jit(pipeline.make_iteration())(
+                pipeline.params, jax.random.key(0)
+            )
+            total = np.asarray(out["image"]["detector"]).sum()
+            assert total == np.asarray(out["meta"]["detector"]).item()
 
 
 class TestMultihostInit:

@@ -96,8 +96,7 @@ class TestMosaicCrystal:
         assert abs(n_cut - n_full) < 5 * np.sqrt(max(n_full, 1)) + 20
 
     def test_weight_mode_matches_mc_depth_aware(self):
-        """Weight-mode mosaic (depth-aware survival weighting, VERDICT r1
-        item 5) reproduces the mc-mode image: total reflected intensity
+        """Weight-mode mosaic (depth-aware survival weighting) reproduces the mc-mode image: total reflected intensity
         within Poisson tolerance at full depth, and a matching line profile.
         """
         mc = xicsrt_tpu.raytrace(_mosaic_config(depth=15, num_iter=2))
@@ -293,7 +292,7 @@ class TestPlugins:
         "example_01_spherical_crystal.py",
         "example_02_aperture.py",
         "example_05_multichip.py",
-        "example_07_fused_gradients.py",
+        "example_08_plasma_fitting.py",
     ],
 )
 def test_example_runs(example):

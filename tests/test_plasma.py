@@ -59,59 +59,42 @@ class TestPlasmaPhotonAccounting:
         assert expected > 1000  # the test must have statistics to mean much
         assert abs(n_gen - expected) < 5 * np.sqrt(expected)
 
-    def test_matmul_gather_matches_gather(self):
-        """The MXU interval-one-hot bundle gather (bundle_gather='matmul',
-        the TPU fast path) produces bit-identical rays to the indexed
-        gather: one-hot rows select exactly one f32 table row, so the
-        HIGHEST-precision contraction is exact."""
+    def test_bundle_gather_matches_repeat(self):
+        """Each ray takes the attributes of its bundle: the generator's
+        searchsorted gather equals ``np.repeat`` of the bundle table by
+        the realized counts (the plain reference), with rays past the
+        realized total masked off."""
         import jax
 
         from xicsrt_tpu.engine import Pipeline
 
-        rays = {}
-        for mode in ("gather", "matmul"):
-            config = _plasma_config(
-                bundle_gather=mode, temperature=300.0,
-                velocity=[1e4, 0.0, 2e4],
-            )
-            pipe = Pipeline(config)
-            name = pipe.source.name
-            rays[mode] = jax.tree_util.tree_map(
-                np.asarray,
-                pipe.generate(pipe.params["sources"][name],
-                              pipe.params["filters"], jax.random.key(3)),
-            )
-        g, m = rays["gather"], rays["matmul"]
-        assert np.array_equal(g.mask, m.mask)
-        keep = g.mask
-        np.testing.assert_array_equal(g.origin[keep], m.origin[keep])
-        np.testing.assert_array_equal(g.direction[keep], m.direction[keep])
-        np.testing.assert_array_equal(g.wavelength[keep], m.wavelength[keep])
+        config = _plasma_config(temperature=300.0, velocity=[1e4, 0.0, 2e4])
+        pipe = Pipeline(config)
+        src = pipe.source
+        params = pipe.params["sources"][src.name]
+        keys = jax.random.split(jax.random.key(3), 7)
+        cum, table, total = src.make_bundle_tables()(
+            params, pipe.params["filters"], keys[0], keys[1], keys[2])
+        cum, table = np.asarray(cum), np.asarray(table)
+        counts = np.diff(np.concatenate([[0], cum]))
+        ref = np.repeat(table, counts, axis=0)
+        n = int(total)
+        assert 0 < n == len(ref) <= src.num_rays
 
-    def test_interval_gather_at_auto_ceiling(self):
-        """B = 4096, the auto-mode ceiling (plasma.py picks 'matmul' up to
-        4096 bundles): the bundle-windowed one-hot keeps the live tile at
-        (256, sub) — the full (4096, sub) tile is 16 MiB and overflows
-        scoped VMEM (ADVICE r3). Values stay bit-identical to the indexed
-        gather, including the all-zero rows past cum[-1]."""
-        import jax
-        import jax.numpy as jnp
+        ray_idx = np.arange(src.num_rays)
+        bundle_id = np.clip(np.searchsorted(cum, ray_idx, side="right"),
+                            0, len(cum) - 1)
+        np.testing.assert_array_equal(table[bundle_id][:n], ref)
 
-        from xicsrt_tpu.ops.bundle_gather import (
-            interval_gather,
-            interval_gather_xla,
-        )
+        rays = pipe.generate(params, pipe.params["filters"], jax.random.key(3))
+        mask = np.asarray(rays.mask)
+        assert mask[:n].all() and not mask[n:].any()
 
-        B = 4096
-        counts = jax.random.randint(jax.random.key(0), (B,), 0, 7)
-        cum = jnp.cumsum(counts).astype(jnp.int32)
-        table = jax.random.normal(
-            jax.random.key(1), (B, 8)
-        ).astype(jnp.float32)
-        n = int(np.asarray(cum[-1])) + 50  # tail rays -> all-zero rows
-        out = interval_gather(cum, table, n, interpret=True)
-        ref = interval_gather_xla(cum, table, n)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    def test_bundle_gather_option_removed(self):
+        """The 'matmul' bundle gather is gone: an old config that still
+        selects a gather mode is refused, not silently ignored."""
+        with pytest.raises(ValueError, match="bundle_gather"):
+            xicsrt_tpu.raytrace(_plasma_config(bundle_gather="matmul"))
 
     def test_all_rays_reach_big_detector(self):
         # Cone aimed at a 4x4 m detector 1 m away: tan(60 deg)*~1.06 < 2.

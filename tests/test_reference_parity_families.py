@@ -153,7 +153,7 @@ class TestFamilyParity:
         scale = R.sum() / O.sum()
         O = O * scale
         keep = (R + O) > 50
-        # The comparison must never silently test nothing (ADVICE r1).
+        # The comparison must never silently test nothing.
         assert keep.sum() > 0, f"{name}: no superpixel has enough counts"
         # Variance of scaled ours is scale * O; of ref is R.
         chi2 = ((O[keep] - R[keep]) ** 2 / (R[keep] + scale * O[keep])).sum()

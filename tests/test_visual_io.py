@@ -81,7 +81,7 @@ class TestPlot2D:
 
     def test_lost_points_filtered_to_optic_region(self, results):
         """Lost rays blocked at the upstream aperture (z=0.5 plane) must not
-        appear among the detector's lost intersections (VERDICT r1 weak 6)."""
+        appear among the detector's lost intersections."""
         lost_local = plot2d._local_points(results, "detector", "lost")
         # The aperture sits 0.5 m in front of the detector: stale upstream
         # points would show |z_local| ~ 0.5.

@@ -1,10 +1,9 @@
-"""A/B benchmark of execution variants on the real TPU chip.
+"""A/B benchmark of execution variants of the XLA engine on one GPU.
 
 Times the full example_02 spectrometer run (same harness as bench.py:
 data-dependency-serialized dispatches, verified outputs) across binning
-backends/dtypes and prints one JSON line per variant. Used to choose the
-framework defaults (``general.binning`` / ``general.binning_dtype``) from
-measured numbers rather than guesses.
+operand dtypes and with images off, and prints one JSON line per variant
+naming the device. Fails without a GPU.
 
 Usage: timeout 590 python tools/bench_ab.py [log2_intensity] [num_iter]
 """
@@ -20,12 +19,9 @@ import numpy as np
 
 
 VARIANTS = {
-    "xla_f32": {"engine": "xla", "binning": "xla"},
-    "xla_bf16": {"engine": "xla", "binning": "xla",
-                 "binning_dtype": "bfloat16"},
-    "pallas": {"engine": "xla", "binning": "pallas"},
-    "no_images": {"engine": "xla", "keep_images": False},
-    "fused": {"engine": "fused"},
+    "xla_f32": {},
+    "xla_bf16": {"binning_dtype": "bfloat16"},
+    "no_images": {"keep_images": False},
 }
 
 
@@ -33,11 +29,11 @@ def time_variant(name, general, intensity, num_iter, reps=3, blocks=2):
     import jax
     import jax.numpy as jnp
 
-    from bench import build
+    from bench import build, gpu_device
 
-    engine = general.pop("engine", "xla")
+    dev = gpu_device()
     keep_images = general.pop("keep_images", True)
-    pipeline, run, _ = build(intensity, num_iter, engine, **general)
+    pipeline, run, _ = build(intensity, num_iter, **general)
     if not keep_images:
         run = pipeline.make_run(num_iter, keep_history=False,
                                 keep_images=False)
@@ -67,7 +63,9 @@ def time_variant(name, general, intensity, num_iter, reps=3, blocks=2):
     n_det = np.asarray(meta["detector"]).item()
     return {
         "variant": name,
-        "rays_per_s": float(f"{rays_per_s:.4g}"),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
+        "rays_per_s": rays_per_s,
         "detected": n_det,
         "eff": float(f"{n_det / (intensity * num_iter):.4g}"),
     }

@@ -1,8 +1,8 @@
-"""Honest per-scenario throughput table on the real TPU chip.
+"""Per-scenario throughput of the XLA engine on one GPU.
 
-Re-measures the scenario table in docs/performance.md with the same
-serialized-dispatch harness as bench.py (the round-1 numbers were inflated
-by overlapping dispatches). One JSON line per scenario.
+Measures each scenario with the same serialized-dispatch harness as
+bench.py. One JSON line per scenario, naming the device. Fails without a
+GPU.
 
 Usage: timeout 590 python tools/bench_scenarios.py [scenario ...]
 """
@@ -121,83 +121,18 @@ SCENARIOS = {
                  mesh_coarse_size=(11, 11)), n, it),
     "plasma_torus": _plasma_config,
     # Reference-scale plasma (1e5 bundles; _XicsrtPlasmaGeneric.py:155
-    # defaults max_bundles=1e7): the page-windowed in-kernel gather.
+    # defaults max_bundles=1e7): the bundle table and per-ray gather.
     "plasma_100k": lambda n, it: _plasma_config(n, it, bundle_count=100000),
     "diff_fwd_bwd": lambda n, it: _config(
         _crystal(class_name="XicsrtOpticSphericalCrystal", radius=1.0),
         n, it),
-    # Same physics, fused forward+backward kernels (ops/fused_grad.py).
-    "fused_diff": lambda n, it: _config(
-        _crystal(class_name="XicsrtOpticSphericalCrystal", radius=1.0),
-        n, it),
 }
 
-# TPU v5e bf16 MXU peak; the same plausibility anchor as bench.py.
-PEAK_FLOPS = 197e12
 
-
-def _round_up(x, m):
-    return -(-x // m) * m
-
-
-def _flops_per_ray(pipeline, engine):
-    """Countable per-ray FLOPs: exact binning MACs + per-stage estimates.
-
-    Binning dominates the flagship (mfu 0.63 there is binning MACs alone);
-    the per-shape/source VPU estimates below are rough transcendental-
-    weighted op counts of the kernel stages (fused engine structure,
-    ops/fused_trace.py) so sub-1e9 scenarios get an honest bound: a LOW
-    mfu with a low VPU estimate says the scenario is latency/structure
-    -bound, not that the MXU is busy.
-    """
-    # Exact MXU MACs: every enabled image contracts its FLAT-packed
-    # accumulator dims per ray on the fused engine (~nx*ny; the padded
-    # image-shaped layout was retired in round 5).
-    if engine == "fused":
-        from xicsrt_tpu.ops.fused_trace import image_macs_per_ray
-
-        mpr = sum(
-            image_macs_per_ray(nx, ny)
-            for (nx, ny), _ in pipeline.image_specs().values()
-        )
-    else:
-        mpr = sum(nx * ny for (nx, ny), _ in pipeline.image_specs().values())
-    flops = 2.0 * mpr
-
-    # VPU estimates per stage (multiply-add = 2; transcendental ~ 8).
-    SOURCE = 150.0       # sampling: RNG, cone basis, trig, Doppler
-    SHAPE = {
-        "plane": 30.0, "sphere": 80.0, "cylinder": 120.0,
-        "torus": 5 * 120.0,          # 5 second-order Newton iterations
-    }
-    for o in pipeline.optics:
-        cname = type(o).__name__.lower()
-        if "torus" in cname or "toroidal" in cname:
-            flops += SHAPE["torus"]
-        elif "cylind" in cname:
-            flops += SHAPE["cylinder"]
-        elif "mesh" in cname:
-            flops += 6 * 2 * 14 * 14  # Newton iters x Chebyshev deg^2 MACs
-        elif "spher" in cname:
-            flops += SHAPE["sphere"]
-        else:
-            flops += SHAPE["plane"]
-        if "mosaic" in cname:
-            depth = int(o.param.get("mosaic_depth", 15))
-            flops += depth * 100.0   # per-layer: normals, Bragg, reflect
-        elif "crystal" in cname:
-            flops += 60.0            # Bragg deviation + rocking curve
-        flops += 40.0                # bounds/aperture/frame transforms
-    from xicsrt_tpu.sources.plasma import PlasmaGeneric
-
-    flops += SOURCE
-    if isinstance(pipeline.source, PlasmaGeneric):
-        # Windowed interval-one-hot bundle gather: 8 attrs x rows MACs.
-        # Beyond 4096 bundles the kernel reads two chunk-sized pages
-        # (2 x 2048 rows) regardless of bundle_count.
-        B_pad = _round_up(max(int(pipeline.source.bundle_count), 128), 128)
-        flops += 2.0 * 8.0 * min(B_pad, 4096)
-    return flops, mpr
+def _binning_flops_per_ray(pipeline):
+    """FLOPs per ray of the binning matrix product: 2 * nx * ny per image."""
+    mpr = sum(nx * ny for (nx, ny), _ in pipeline.image_specs().values())
+    return 2.0 * mpr, mpr
 
 
 def time_chained(step, params, n_rays, reps=2, blocks=2):
@@ -229,43 +164,12 @@ def run_scenario(name, log2=None, num_iter=None):
     import jax
     import jax.numpy as jnp
 
+    from bench import gpu_device, peak_flops
     from xicsrt_tpu.engine import Pipeline
 
+    dev = gpu_device()
     intensity = 1 << log2
     config = SCENARIOS[name](intensity, num_iter)
-
-    if name == "fused_diff":
-        from xicsrt_tpu.gradients import make_fused_differentiable
-
-        chunk_env = os.environ.get("XICSRT_BENCH_CHUNK")
-        forward, vjp_fn, pack, pipeline = make_fused_differentiable(
-            config, num_iter=num_iter,
-            chunk=int(chunk_env) if chunk_env else 8192,
-        )
-        pvec = pipeline and pack(pipeline.params)
-        img_keys = {}
-        for o in pipeline.optics:
-            if o.enable_image:
-                nx, ny = (int(v) for v in o.image_shape)
-                img_keys[o.name] = jax.random.uniform(
-                    jax.random.key(hash(o.name) % 1000), (nx, ny)
-                ).astype(jnp.float32)
-
-        @jax.jit
-        def step(pvec, key, dep):
-            # Real optimization-step shape: forward, loss cotangent from
-            # the images (data dependency serializes fwd -> vjp), vjp.
-            k = jax.random.fold_in(key, dep)
-            out = forward(pvec, k)
-            g = {n: out["image"][n] - img_keys[n] for n in out["image"]}
-            gv = vjp_fn(pvec, k, g)
-            return (jnp.abs(gv[16 + 13]) * 1e3).astype(jnp.uint32)
-
-        n_rays = intensity * num_iter
-        rps = time_chained(step, pvec, n_rays)
-        return {"scenario": name, "engine": "fused",
-                "rays_per_s": float(f"{rps:.4g}"),
-                "rays_per_dispatch": n_rays}
 
     if name == "diff_fwd_bwd":
         from xicsrt_tpu.gradients import make_differentiable
@@ -295,32 +199,13 @@ def run_scenario(name, log2=None, num_iter=None):
             return (jnp.abs(leaf[0]) * 1e6).astype(jnp.uint32)
 
         n_rays = intensity * num_iter
-        rps = time_chained(step, pipeline.params, n_rays)
-        # Reverse mode with per-iteration remat: ~3 forward-equivalent
-        # passes (primal + recompute + adjoint).
-        fpr, _ = _flops_per_ray(pipeline, "xla")
-        mfu = 3.0 * fpr * rps / PEAK_FLOPS
+        # The tent product runs three times per ray: forward and the two
+        # products of its transpose.
+        passes = 3.0
     else:
         pipeline = Pipeline(config)
-        engine = "xla"
-        if os.environ.get("XICSRT_BENCH_ENGINE", "auto") != "xla":
-            from xicsrt_tpu.ops.fused_trace import (
-                FusedUnsupported, build_fast_run,
-            )
-
-            chunk_env = os.environ.get("XICSRT_BENCH_CHUNK")
-            try:
-                fused, engine = build_fast_run(
-                    pipeline, num_iter=num_iter,
-                    chunk=int(chunk_env) if chunk_env else None,
-                )
-            except FusedUnsupported:
-                pass
-        if engine == "fused":
-            run = lambda params, key: fused(key)  # noqa: E731
-        else:
-            run = pipeline.make_run(num_iter, keep_history=False,
-                                    keep_images=True)
+        run = pipeline.make_run(num_iter, keep_history=False,
+                                keep_images=True)
         last = pipeline.element_names[-1]
 
         def step(params, key, dep):
@@ -328,20 +213,18 @@ def run_scenario(name, log2=None, num_iter=None):
             return out["meta"][last].astype(jnp.uint32)
 
         n_rays = pipeline.num_rays * num_iter
-        rps = time_chained(step, pipeline.params, n_rays)
-        fpr, mpr = _flops_per_ray(pipeline, engine)
-        mfu = fpr * rps / PEAK_FLOPS
-        return {"scenario": name, "engine": engine,
-                "rays_per_s": float(f"{rps:.4g}"),
-                "rays_per_dispatch": n_rays,
-                "mfu": float(f"{mfu:.3g}"),
-                "flops_per_ray": float(f"{fpr:.4g}"),
-                "binning_macs_per_ray": int(mpr)}
-    return {"scenario": name, "engine": "xla",
-            "rays_per_s": float(f"{rps:.4g}"),
+        passes = 1.0
+    rps = time_chained(step, pipeline.params, n_rays)
+    fpr, mpr = _binning_flops_per_ray(pipeline)
+    op_dtype = jnp.dtype(pipeline.source.dtype).name
+    share = passes * fpr * rps / peak_flops(dev.device_kind, op_dtype)
+    return {"scenario": name,
+            "device": {"platform": dev.platform, "kind": dev.device_kind,
+                       "count": len(jax.devices())},
+            "rays_per_s": rps,
             "rays_per_dispatch": n_rays,
-            "mfu": float(f"{mfu:.3g}"),
-            "flops_per_ray": float(f"{fpr:.4g}")}
+            "binning_peak_share": share,
+            "binning_macs_per_ray": int(mpr)}
 
 
 def main():

@@ -1,7 +1,8 @@
 """Stage-bisection benchmark: which part of the pipeline costs the time?
 
 Times source-only, +aperture, +crystal, and the full chain, plus PRNG
-implementation variants, on the real chip. One JSON line per variant.
+implementation variants, on one GPU. One JSON line per variant, naming the
+device. Fails without a GPU.
 
 Usage: timeout 590 python tools/bench_stages.py [log2_intensity] [num_iter]
 """
@@ -49,8 +50,12 @@ def main():
     import jax
 
     from __graft_entry__ import _spectrometer_config
+    from bench import gpu_device
     from xicsrt_tpu.engine import Pipeline
 
+    dev = gpu_device()
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices())}
     log2 = int(sys.argv[1]) if len(sys.argv) > 1 else 25
     num_iter = int(sys.argv[2]) if len(sys.argv) > 2 else 16
     intensity = 1 << log2
@@ -73,16 +78,16 @@ def main():
     for name, kw in variants.items():
         pipeline, run = build(**kw)
         rps = time_run(pipeline, run, intensity, num_iter)
-        print(json.dumps({"variant": name,
-                          "rays_per_s": float(f"{rps:.4g}")}), flush=True)
+        print(json.dumps({"variant": name, "device": device,
+                          "rays_per_s": rps}), flush=True)
 
     # PRNG implementation: threefry (default, splittable, slow) vs rbg
     # (hardware RngBitGenerator).
     jax.config.update("jax_default_prng_impl", "rbg")
     pipeline, run = build()
     rps = time_run(pipeline, run, intensity, num_iter)
-    print(json.dumps({"variant": "full_rbg_prng",
-                      "rays_per_s": float(f"{rps:.4g}")}), flush=True)
+    print(json.dumps({"variant": "full_rbg_prng", "device": device,
+                      "rays_per_s": rps}), flush=True)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,7 @@ def _get_parser():
         prog="xicsrt_tpu",
         description=(
             f"xicsrt_tpu version {__version__}\n\n"
-            "Perform a TPU-native raytrace from the command line.\n"
+            "Perform a raytrace from the command line.\n"
             "The input is a configuration dictionary in json format\n"
             "(pickle and hdf5 are also supported)."
         ),

@@ -6,7 +6,7 @@ The nested-dict config *is* the public API contract of the reference
 name with a ``class_name``, recursive merge with strict unknown-key
 detection, and class-defined defaults chained through inheritance.
 
-TPU-specific additions live under ``general``:
+Execution options added under ``general``:
 
 - ``dtype``: 'float32' (default) or 'float64' for validation runs;
 - ``interact_mode``: 'mc' (reference Monte-Carlo acceptance semantics) or
@@ -28,7 +28,7 @@ from xicsrt_tpu._version import __version__
 
 def default_config() -> dict:
     """Top-level defaults. Mirrors ``xicsrt_config.default_config`` (:29-205)
-    minus host-multiprocessing options, plus the TPU execution options."""
+    minus host-multiprocessing options, plus the execution options."""
     config: dict = {}
     g: dict = {}
     config["general"] = g
@@ -51,35 +51,20 @@ def default_config() -> dict:
 
     g["keep_meta"] = True
     g["keep_images"] = True
-    # True (full history), False, or 'found': on the fused engine, 'found'
-    # fills a bounded in-kernel reservoir with the chunks that produced
-    # detector hits (ops/fused_trace.py build_fused_run docstring).
     g["keep_history"] = True
     g["history_max_lost"] = 10000
-    # Reservoir size for keep_history='found': at most
-    # history_found_slots * chunk rays of per-element history.
-    g["history_found_slots"] = 8
 
     g["save_config"] = False
     g["save_images"] = False
     g["save_results"] = False
     g["print_results"] = True
 
-    # --- TPU execution options (new in xicsrt_tpu) ---
+    # --- execution options (new in xicsrt_tpu) ---
     g["dtype"] = "float32"
     g["interact_mode"] = "mc"
     g["image_mode"] = "nearest"
-    # Execution engine: 'xla' (general, differentiable), 'fused' (single
-    # Pallas megakernel — generate+trace+bin with zero per-ray HBM traffic;
-    # raises on configs outside its subset, see ops/fused_trace.py), or
-    # 'auto' (fused when supported, else xla).
-    g["engine"] = "xla"
-    # Binning backend: 'xla' (chunked one-hot matmul scan) or 'pallas'
-    # (VMEM-resident kernel; nearest mode, TPU only). A/B'd on v5e in
-    # tools/bench_ab.py; 'xla' measured faster on the full pipeline.
-    g["binning"] = "xla"
-    # MXU operand dtype for binning ('float32'/'bfloat16'/None=ray dtype).
-    # bfloat16 doubles MXU throughput and is exact for unit ray weights.
+    # Operand dtype of the binning matrix product ('float32'/'bfloat16'/
+    # None = ray dtype); bfloat16 is exact for unit ray weights.
     g["binning_dtype"] = None
     g["devices"] = None
     g["shard_rays"] = False
@@ -94,7 +79,49 @@ def default_config() -> dict:
     return config
 
 
+# Options of the removed Pallas engines. A config that still sets one is
+# rejected rather than silently run on another engine.
+_REMOVED_GENERAL = {
+    "engine": "the 'fused'/'auto' Pallas engine",
+    "binning": "the 'pallas' binning kernel",
+    "history_found_slots": "the fused engine's 'found' history reservoir",
+}
+_REMOVED_SOURCE = {"bundle_gather": "the 'matmul' plasma bundle gather"}
+
+
+def check_removed_options(config_user: dict | None) -> None:
+    """Raise ``ValueError`` for options whose implementation was removed.
+
+    The XLA engine is the only engine: every config runs on it, with the
+    binning and the plasma bundle gather chosen from the platform.
+    """
+    if not config_user:
+        return
+    general = config_user.get("general") or {}
+    for key, what in _REMOVED_GENERAL.items():
+        if key in general:
+            raise ValueError(
+                f"general.{key} selected {what}, which was removed; the XLA "
+                f"engine runs every config. Delete the option."
+            )
+    if isinstance(general.get("keep_history"), str):
+        raise ValueError(
+            f"keep_history={general['keep_history']!r} selected a bounded "
+            f"history reservoir of the removed fused engine; use True (full "
+            f"per-ray history) or False."
+        )
+    for name, source in (config_user.get("sources") or {}).items():
+        for key, what in _REMOVED_SOURCE.items():
+            if key in source:
+                raise ValueError(
+                    f'Source "{name}": {key} selected {what}, which was '
+                    f"removed; bundle attributes are always gathered by "
+                    f"index. Delete the option."
+                )
+
+
 def get_config(config_user: dict | None = None) -> dict:
+    check_removed_options(config_user)
     config = default_config()
     update_config(config, config_user, strict=False, update=True)
     return config

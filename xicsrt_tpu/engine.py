@@ -42,8 +42,12 @@ log = logging.getLogger("xicsrt_tpu")
 class Pipeline:
     """A config compiled into pure generate/trace functions + params pytree."""
 
-    def __init__(self, config: dict):
+    def __init__(self, config: dict, platform: str | None = None):
+        """``platform``: the JAX platform whose image binning route the
+        compiled functions use (``ops.binning.binning_route``); default
+        JAX's default backend."""
         self.config = get_config(config)
+        self.platform = platform or jax.default_backend()
         general = self.config["general"]
         self.general = general
         if str(general.get("dtype", "float32")).lower() in ("float64", "f64"):
@@ -73,8 +77,6 @@ class Pipeline:
             filter_fns.append((fname, filter_map[fname].make_filter()))
 
         self.generate = self.source.make_generate(filter_fns)
-        # Kept for builders that re-wire source sampling (fused engine).
-        self.source_filter_fns = filter_fns
         self.optic_traces = [(o.name, o.make_trace()) for o in self.optics]
 
         self.params = {
@@ -100,9 +102,15 @@ class Pipeline:
         return out
 
     # ------------------------------------------------------------------
-    def make_iteration(self, keep_history: bool | None = None,
-                       keep_images: bool | None = None):
-        """Build ``iteration(params, key) -> dict`` for one trace pass."""
+    def make_trace(self, keep_history: bool | None = None,
+                   keep_images: bool | None = None):
+        """Build ``trace(params, key) -> (meta, history, hits)``: one pass
+        of source sampling and the optic chain, without image binning.
+
+        ``hits`` maps each imaging optic to ``(x_local, mask, weight)``, the
+        inputs of its detector image (see ``image_specs`` for the shape and
+        pixel size); it is empty when ``keep_images`` is off.
+        """
         g = self.general
         if keep_history is None:
             keep_history = bool(g["keep_history"])
@@ -112,29 +120,20 @@ class Pipeline:
         generate = self.generate
         optic_traces = self.optic_traces
         image_specs = self.image_specs()
-        # 'nearest' reproduces the reference's hard pixel assignment
-        # (_TraceObject.py:257-291); 'bilinear' is the differentiable splat.
-        # All images accumulate in ONE fused pass over the ray axis
-        # (separate chunked scans defeat XLA fusion of the trace pipeline).
-        image_mode = str(g.get("image_mode", "nearest")).lower()
-        binning_impl = str(g.get("binning", "xla")).lower()
-        binning_dtype = g.get("binning_dtype")
-
         # keep_meta=False drops the per-element counters from the outputs,
         # matching the reference's keep_meta gate (xicsrt_raytrace.py:187-201).
         keep_meta = bool(g.get("keep_meta", True))
 
-        def iteration(params, key):
+        def trace(params, key):
             k_source, k_optics = jax.random.split(key)
             rays = generate(
                 params["sources"][source_name], params["filters"], k_source
             )
             meta = {source_name: rays.num_alive()} if keep_meta else {}
             history = {source_name: rays} if keep_history else {}
-            image_inputs = []
-            image_names = []
-            for idx, (name, trace) in enumerate(optic_traces):
-                rays, x_local = trace(
+            hits = {}
+            for idx, (name, optic_trace) in enumerate(optic_traces):
+                rays, x_local = optic_trace(
                     params["optics"][name], rays, jax.random.fold_in(k_optics, idx)
                 )
                 if keep_meta:
@@ -142,20 +141,34 @@ class Pipeline:
                 if keep_history:
                     history[name] = rays
                 if keep_images and name in image_specs:
-                    (nx, ny), pixel_size = image_specs[name]
-                    image_inputs.append(
-                        (x_local, rays.mask, rays.weight, nx, ny, pixel_size)
-                    )
-                    image_names.append(name)
-            images = dict(
-                zip(
-                    image_names,
-                    bin_images_fused(
-                        image_inputs, image_mode,
-                        impl=binning_impl, op_dtype=binning_dtype,
-                    ),
-                )
-            )
+                    hits[name] = (x_local, rays.mask, rays.weight)
+            return meta, history, hits
+
+        return trace
+
+    def make_iteration(self, keep_history: bool | None = None,
+                       keep_images: bool | None = None):
+        """Build ``iteration(params, key) -> dict`` for one trace pass."""
+        trace = self.make_trace(keep_history, keep_images)
+        image_specs = self.image_specs()
+        # 'nearest' reproduces the reference's hard pixel assignment
+        # (_TraceObject.py:257-291); 'bilinear' is the differentiable splat.
+        # All images accumulate in ONE fused pass over the ray axis
+        # (separate chunked scans defeat XLA fusion of the trace pipeline).
+        image_mode = str(self.general.get("image_mode", "nearest")).lower()
+        binning_dtype = self.general.get("binning_dtype")
+        platform = self.platform
+
+        def iteration(params, key):
+            meta, history, hits = trace(params, key)
+            names = [n for n in image_specs if n in hits]
+            items = [
+                hits[n] + (*image_specs[n][0], image_specs[n][1])
+                for n in names
+            ]
+            images = dict(zip(names, bin_images_fused(
+                items, image_mode, op_dtype=binning_dtype, platform=platform,
+            )))
             return {"meta": meta, "image": images, "history": history}
 
         return iteration
@@ -329,27 +342,6 @@ def _sort_history(history_dev: dict, names: list, max_lost: int,
     return found, lost
 
 
-def _params_match(params, reference) -> bool:
-    """True when two params pytrees hold identical values.
-
-    Tracers (a jitted caller) compare as True: equality cannot be checked
-    under trace, and the fused kernel's geometry is baked in regardless.
-    """
-    try:
-        leaves_a, tree_a = jax.tree_util.tree_flatten(params)
-        leaves_b, tree_b = jax.tree_util.tree_flatten(reference)
-    except Exception:
-        return False
-    if tree_a != tree_b:
-        return False
-    for a, b in zip(leaves_a, leaves_b):
-        if isinstance(a, jax.core.Tracer) or isinstance(b, jax.core.Tracer):
-            continue
-        if not np.array_equal(np.asarray(a), np.asarray(b)):
-            return False
-    return True
-
-
 def build_runner(config: dict, pipeline: Pipeline | None = None):
     """Compile the per-run executor: plain jit, or ray-sharded over devices
     when ``general.shard_rays`` is set and more than one device is present.
@@ -370,69 +362,6 @@ def build_runner(config: dict, pipeline: Pipeline | None = None):
         return runner, pipeline
     pipeline = pipeline or Pipeline(config)
     num_iter = int(pipeline.general["number_of_iter"])
-    engine_kind = str(g.get("engine", "xla")).lower()
-    kh = g["keep_history"]
-    # keep_history='found': bounded in-kernel reservoir of the chunks
-    # with detector hits; keep_history='sampled': unbiased bounded
-    # sample of ALL rays (found + lost, honoring history_max_lost) —
-    # both on the fused engine (FULL history stays an XLA-engine
-    # feature).
-    kh_mode = kh.lower() if isinstance(kh, str) else None
-    fused_history = kh_mode in ("found", "sampled")
-    if engine_kind in ("fused", "auto") and (not kh or fused_history):
-        from xicsrt_tpu.ops.fused_trace import FusedUnsupported, build_fast_run
-
-        try:
-            # Off-TPU the kernel runs under the Pallas TPU interpreter
-            # (correctness/testing only — the perf path is the real chip).
-            fused, _kind = build_fast_run(
-                pipeline, num_iter=num_iter,
-                interpret=jax.default_backend() != "tpu",
-                history_slots=(int(g.get("history_found_slots") or 8)
-                               if kh_mode == "found" else None),
-                history_mode=kh_mode or "found",
-            )
-            build_params = pipeline.params
-
-            def runner(params, key):
-                # Geometry is compiled into the kernel at build time. A
-                # caller mutating params would silently trace stale
-                # geometry, so verify (identity fast path; deep compare
-                # otherwise) and fail loudly on a mismatch.
-                if params is not build_params and not _params_match(
-                        params, build_params):
-                    raise ValueError(
-                        "engine='fused' bakes geometry in at build time; "
-                        "the params passed differ from the build-time "
-                        "values. Rebuild the runner after changing params, "
-                        "or use the XLA engine for parameter sweeps."
-                    )
-                return fused(key)
-
-            return runner, pipeline
-        except FusedUnsupported as err:
-            if engine_kind == "fused":
-                raise
-            if fused_history:
-                # The XLA fallback has no bounded reservoir: 'found' /
-                # 'sampled' are truthy there and degrade to FULL per-ray
-                # history — O(num_rays * num_iter) host arrays instead of
-                # the bounded buffer the caller asked for. Warn loudly.
-                log.warning(
-                    "fused engine unavailable (%s); keep_history=%r "
-                    "degrades to FULL per-ray history on the XLA engine "
-                    "(unbounded memory in num_rays*num_iter)", err, kh,
-                )
-            else:
-                log.info(
-                    "fused engine unavailable (%s); using XLA engine", err
-                )
-    elif engine_kind == "fused":
-        raise NotImplementedError(
-            "engine='fused' does not keep FULL ray history; set "
-            "keep_history=False, keep_history='found' (bounded in-kernel "
-            "reservoir), or engine='auto' to fall back."
-        )
     if bool(g["keep_history"]) and num_iter > 1:
         # History mode: compile ONE iteration and loop on the host —
         # unrolling every iteration into a single XLA program multiplies
@@ -568,8 +497,8 @@ def raytrace(config: dict) -> dict:
 
     outputs = []
     # general.profile_dir: capture a device-level jax profiler trace of the
-    # whole run loop (TPU equivalent of the reference's profiler spans
-    # through the engine, xicsrt_raytrace.py:43,103,183).
+    # whole run loop (device-side counterpart of the reference's profiler
+    # spans through the engine, xicsrt_raytrace.py:43,103,183).
     with profiler.device_trace(g.get("profile_dir")):
         for run in range(num_runs):
             g["output_run_suffix"] = f"{run:04d}"

@@ -5,10 +5,11 @@ with a differentiable pytree: an element pose is ``origin`` plus a row-matrix
 ``basis`` whose rows are the local x/y/z axes expressed in global coordinates.
 
 Transforms are deliberately written as broadcast multiplies + adds rather
-than ``v @ basis``: on TPU a dot_general runs on the MXU at bf16 input
-precision by default, which is catastrophic for Bragg-scale angles
-(rocking widths are ~5e-5 rad), while a K=3 contraction gains nothing from
-the systolic array. The elementwise form runs on the VPU in full f32/f64.
+than ``v @ basis``: an accelerator may run a float32 dot_general at reduced
+input precision by default (TF32 on a GPU), which is catastrophic for
+Bragg-scale angles (rocking widths are ~5e-5 rad), while a K=3 contraction
+gains nothing from a matrix unit. The elementwise form runs in full
+f32/f64.
 """
 
 from __future__ import annotations

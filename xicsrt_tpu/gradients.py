@@ -32,7 +32,8 @@ from xicsrt_tpu.engine import Pipeline
 
 def make_differentiable(config: dict, num_iter: int | None = None,
                         remat: bool | None = None, mesh=None,
-                        n_devices: int | None = None):
+                        n_devices: int | None = None,
+                        platform: str | None = None):
     """Build a differentiable forward: ``images(params, key) -> dict``.
 
     Forces weight-mode interactions and bilinear imaging. Returns
@@ -44,7 +45,11 @@ def make_differentiable(config: dict, num_iter: int | None = None,
     binning itself needs no rematerialization either way — its custom
     tent-transpose VJP (``ops/binning.py``) keeps only O(N) residuals.
     Pass ``remat=False`` for runs whose per-iteration trace intermediates
-    fit in HBM (the backward then skips the ~1x trace recompute).
+    fit in device memory (the backward then skips the ~1x trace
+    recompute).
+
+    ``platform`` selects the image binning route as for ``Pipeline``
+    (default: JAX's default backend).
 
     Multi-chip gradients: pass ``mesh`` (a 1-D ``jax.sharding.Mesh``) or
     ``n_devices`` to shard the ray axis. Each device folds its mesh
@@ -76,7 +81,7 @@ def make_differentiable(config: dict, num_iter: int | None = None,
 
         config = _shard_intensity(config, int(mesh.devices.size))
 
-    pipeline = Pipeline(config)
+    pipeline = Pipeline(config, platform=platform)
     n_iter = num_iter or int(pipeline.general["number_of_iter"])
     if remat is None:
         remat = True
@@ -113,97 +118,6 @@ def make_differentiable(config: dict, num_iter: int | None = None,
 
 def l2_image_loss(image, target):
     return jnp.mean((image - target) ** 2)
-
-
-def make_fused_differentiable(config: dict, num_iter: int | None = None,
-                              chunk: int = 32768,
-                              interpret: bool | None = None,
-                              mesh=None, n_devices: int | None = None):
-    """Fused-kernel differentiable path (``ops/fused_grad.py``).
-
-    Returns ``(forward, vjp, pack, pipeline)``:
-
-    - ``pvec = pack(pipeline.params)`` — differentiated parameters as a
-      flat runtime vector (SMEM input: update without recompiling);
-    - ``forward(pvec, key) -> {"image": {...}}`` — weight-mode bilinear
-      images from one Pallas megakernel;
-    - ``vjp(pvec, key, g_images) -> gvec`` — EXACT gradient of
-      ``sum(g * image)`` w.r.t. ``pvec``, from a twin kernel that
-      re-generates the same rays and runs a hand-derived adjoint sweep
-      on-chip (validated against jax.grad at f64 rtol 1e-9,
-      ``tests/test_fused_grad.py``).
-
-    Raises ``FusedGradUnsupported`` outside the subset —
-    plane/sphere/cylinder/torus optics with mirror/crystal/mosaic
-    interactions (gaussian/step/file rocking), counted-budget
-    generic/directed/focused sources (any spatial/angular dist;
-    mono/uniform/voigt wavelengths, Doppler) and constant-profile
-    plasmas with emissivity/temperature gradients; the XLA path
-    (``make_differentiable``) covers everything else (Poisson budgets,
-    meshes, profile-shaped plasmas, f64).
-
-    Multi-chip: pass ``mesh``/``n_devices`` to shard the photon load —
-    each device seeds its own ray stream from its mesh position, the
-    forward's images are psum-reduced, and the vjp kernel's gradient
-    vectors psum too: the in-kernel adjoint composes with the mesh the
-    same way the XLA gradient path does.
-    """
-    import copy
-
-    from xicsrt_tpu.ops.fused_grad import build_fused_diff
-
-    config = copy.deepcopy(config)
-    general = config.setdefault("general", {})
-    general["interact_mode"] = "weight"
-    general["image_mode"] = "bilinear"
-    general["keep_history"] = False
-
-    if mesh is None and n_devices is not None and n_devices > 1:
-        from xicsrt_tpu.parallel.mesh import ray_mesh
-
-        mesh = ray_mesh(n_devices)
-    if mesh is not None:
-        from xicsrt_tpu.parallel.mesh import _shard_intensity
-
-        config = _shard_intensity(config, int(mesh.devices.size))
-
-    pipeline = Pipeline(config)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    forward, vjp, pack, _spec = build_fused_diff(
-        pipeline, num_iter=num_iter, chunk=chunk, interpret=interpret
-    )
-    if mesh is None:
-        return forward, vjp, pack, pipeline
-
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    axis = mesh.axis_names[0]
-    image_names = _spec["image_names"]
-
-    def device_forward(pvec, key):
-        idx = jax.lax.axis_index(axis)
-        out = forward(pvec, jax.random.fold_in(key, idx))
-        return {"image": {
-            k: jax.lax.psum(out["image"][k], axis) for k in image_names
-        }}
-
-    def device_vjp(pvec, key, g_images):
-        idx = jax.lax.axis_index(axis)
-        gv = vjp(pvec, jax.random.fold_in(key, idx), g_images)
-        return jax.lax.psum(gv, axis)
-
-    sh_forward = shard_map(
-        device_forward, mesh=mesh, in_specs=(P(), P()),
-        out_specs={"image": {k: P() for k in image_names}},
-        check_vma=False,
-    )
-    sh_vjp = shard_map(
-        device_vjp, mesh=mesh, in_specs=(P(), P(), P()),
-        out_specs=P(), check_vma=False,
-    )
-    return jax.jit(sh_forward), jax.jit(sh_vjp), pack, pipeline
 
 
 def align(

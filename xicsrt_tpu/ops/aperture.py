@@ -1,6 +1,6 @@
 """Aperture masking with boolean composition.
 
-TPU-native equivalent of ``xicsrt/tools/xicsrt_aperture.py``: a static list of
+Vectorized equivalent of ``xicsrt/tools/xicsrt_aperture.py``: a static list of
 aperture specs compiles to a branch-free chain of vectorized mask updates.
 The logic-op semantics match the reference exactly, including the (slightly
 surprising) behavior that nand/nor/xnor can *revive* rays outside the current

@@ -1,8 +1,14 @@
 """Detector pixel binning.
 
 Replaces the per-ray Python accumulation loop in the reference
-(``_TraceObject.py:289-291`` — the hottest loop in its profile) with a
-vectorized scatter-add that XLA lowers to a single fused kernel on TPU.
+(``_TraceObject.py:289-291`` — the hottest loop in its profile) with two
+vectorized forms: a scatter-add over flat pixel indices, and a factorized
+one-hot/tent matrix product over chunks of rays. ``binning_route`` picks one
+of them from the platform.
+
+Every float32 contraction here asks for ``Precision.HIGHEST``: on a GPU an
+f32 product otherwise runs in TF32, which would round ray weights and tent
+fractions to a 10-bit mantissa and change the gradients of bilinear images.
 """
 
 from __future__ import annotations
@@ -11,6 +17,24 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+_PRECISION = jax.lax.Precision.HIGHEST
+
+
+def binning_route(platform: str) -> str:
+    """The binning implementation for a JAX platform name.
+
+    ``"cpu"`` -> ``"scatter"`` (``bin_image``/``bin_image_bilinear``);
+    ``"gpu"`` -> ``"matmul"`` (the chunked one-hot/tent contraction of
+    ``bin_images_fused``). Any other platform raises ``ValueError``.
+    """
+    routes = {"cpu": "scatter", "gpu": "matmul"}
+    if platform not in routes:
+        raise ValueError(
+            f"No image binning route for platform {platform!r}; "
+            f"supported: {sorted(routes)}."
+        )
+    return routes[platform]
 
 
 def bin_image(
@@ -56,20 +80,18 @@ def bin_image_matmul(
     pixel_size: float,
     chunk: int = 1 << 16,
 ) -> jax.Array:
-    """MXU-friendly binning: factorized one-hot matmul histogram.
+    """Binning as a factorized one-hot matrix product.
 
-    XLA lowers scatter-add on TPU to a serialized update loop — measured at
-    ~50x the cost of the whole trace pipeline. Instead, build per-axis
-    one-hot matrices OX [C, nx] (scaled by the ray weight) and OY [C, ny]
-    for a chunk of C rays; then ``image += OX^T @ OY`` accumulates the joint
-    histogram as a matmul on the systolic array:
+    Build per-axis one-hot matrices OX [C, nx] (scaled by the ray weight)
+    and OY [C, ny] for a chunk of C rays; then ``image += OX^T @ OY``
+    accumulates the joint histogram as a matrix product:
 
         sum_r OX[r, i] * OY[r, j] * w[r]  ==  image[i, j].
 
-    One-hot formation costs O(C * (nx + ny)) vector compares; the matmul
-    O(C * nx * ny) MACs at MXU rates. Chunked with ``lax.scan`` so the
-    one-hot tiles stay on-chip. Results are exactly equal to ``bin_image``
-    (same nearest-pixel convention).
+    One-hot formation costs O(C * (nx + ny)) compares; the product
+    O(C * nx * ny) multiply-adds. Chunked with ``lax.scan`` so the one-hot
+    tiles stay small. Results equal ``bin_image`` (same nearest-pixel
+    convention).
     """
     n = x_local.shape[0]
     dtype = x_local.dtype
@@ -102,7 +124,8 @@ def bin_image_matmul(
         img = img + jax.lax.dot_general(
             ox, oy,
             dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
+            precision=_PRECISION,
+            preferred_element_type=jnp.promote_types(jnp.float32, dtype),
         ).astype(dtype)
         return img, None
 
@@ -120,7 +143,7 @@ def bin_image_bilinear_matmul(
     pixel_size: float,
     chunk: int = 1 << 16,
 ) -> jax.Array:
-    """MXU-friendly differentiable binning: tent-function matmul.
+    """Differentiable binning as a tent-function matrix product.
 
     The bilinear splat weight of ray r on pixel (i, j) is
     ``max(0, 1-|px-i|) * max(0, 1-|py-j|)``, which factorizes per axis —
@@ -130,8 +153,8 @@ def bin_image_bilinear_matmul(
         image = (TX * w)^T @ TY,  TX[r, i] = relu(1 - |px[r] - i|).
 
     Identical values and gradients to ``bin_image_bilinear`` (piecewise
-    linear in the hit position), at matmul rates on TPU. Backward runs
-    through the custom tent-transpose VJP (no materialized residuals).
+    linear in the hit position). Backward runs through the custom
+    tent-transpose VJP (no materialized residuals).
     """
     dtype = x_local.dtype
     px = x_local[:, 0] / pixel_size + (nx - 1) / 2.0
@@ -186,8 +209,8 @@ def _tent_images(specs, chunk, op_dtype_name, pxs, pys, ws):
         d/dpy[r] = w[r] * (TX[r,:] @ g @ TY'[r,:])
 
     so the backward recomputes the tent columns from the O(N) residuals
-    (px, py, w) and runs two extra chunk matmuls — same MXU shape as the
-    forward, nothing materialized.
+    (px, py, w) and runs two extra chunk products of the forward's shape,
+    nothing materialized.
     """
     images, _ = _tent_images_fwd(specs, chunk, op_dtype_name, pxs, pys, ws)
     return images
@@ -218,6 +241,7 @@ def _tent_images_fwd(specs, chunk, op_dtype_name, pxs, pys, ws):
                 + jax.lax.dot_general(
                     (tx * w_i[:, None]).astype(op_dtype), ty.astype(op_dtype),
                     dimension_numbers=(((0,), (0,)), ((), ())),
+                    precision=_PRECISION,
                     preferred_element_type=acc_dtype,
                 ).astype(dtype)
             )
@@ -253,11 +277,11 @@ def _tent_images_bwd(specs, chunk, op_dtype_name, res, g):
             # md[r, j] = sum_i TX'[r, i] g[i, j]
             m = jax.lax.dot_general(
                 tx, g_i, dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=acc_dtype,
+                precision=_PRECISION, preferred_element_type=acc_dtype,
             ).astype(dtype)
             md = jax.lax.dot_general(
                 dtx, g_i, dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=acc_dtype,
+                precision=_PRECISION, preferred_element_type=acc_dtype,
             ).astype(dtype)
             dw = jnp.sum(m * ty, axis=1)
             dpx = w_i * jnp.sum(md * ty, axis=1)
@@ -276,54 +300,44 @@ _tent_images.defvjp(_tent_images_fwd, _tent_images_bwd)
 
 
 def bin_images_fused(items: list, image_mode: str = "nearest",
-                     chunk: int = 1 << 17, impl: str = "xla",
-                     op_dtype=None) -> list:
+                     chunk: int = 1 << 17, op_dtype=None,
+                     platform: str | None = None) -> list:
     """Accumulate SEVERAL images in one chunked pass over the ray axis.
 
     ``items``: list of (x_local, mask, weight, nx, ny, pixel_size), all with
     the same ray count. Running each image as its own chunked scan defeats
-    XLA's fusion of the trace pipeline (measured ~30x slowdown with two
-    images); a single scan whose carry holds every accumulator keeps the
-    one-hot/tent tiles on-chip and the surrounding pipeline fused.
+    XLA's fusion of the trace pipeline; a single scan whose carry holds
+    every accumulator keeps the one-hot/tent tiles small and the
+    surrounding pipeline fused.
 
-    Returns the images in input order. Matmul (MXU) accumulation on
-    accelerators; falls back to per-item scatter on CPU.
+    Returns the images in input order. ``platform`` (default: JAX's default
+    backend) picks the route through ``binning_route``: per-item scatter on
+    the CPU, the chunked matrix product on the GPU.
 
-    ``impl``: 'xla' (chunked scan of dot_generals, default) or 'pallas'
-    (hand-tiled VMEM-resident kernel, nearest mode only; config
-    ``general.binning``). ``op_dtype``: dtype of the one-hot/tent operands fed
-    to the MXU (config ``general.binning_dtype``). Accumulation is always
-    f32 via ``preferred_element_type``; ``bfloat16`` operands double MXU
-    throughput and are EXACT for nearest-mode binning with unit ray weights
-    (0/1 matrix entries are representable), but round non-unit weights to
-    8 mantissa bits. Default: the ray dtype.
-
-    The default chunk (131072) was swept on TPU v5e: throughput is highly
-    sensitive to it (65536 hits a Mosaic tiling pathology ~50x slower).
+    ``op_dtype``: dtype of the one-hot/tent operands of the product (config
+    ``general.binning_dtype``). Accumulation is always at least f32 via
+    ``preferred_element_type``; ``bfloat16`` operands are EXACT for
+    nearest-mode binning with unit ray weights (0/1 matrix entries are
+    representable), but round non-unit weights to 8 mantissa bits.
+    Default: the ray dtype.
     """
     if not items:
         return []
+    if platform is None:
+        platform = jax.default_backend()
     scatter_fn = bin_image_bilinear if image_mode == "bilinear" else bin_image
-    if jax.default_backend() == "cpu":
+    if binning_route(platform) == "scatter":
         return [scatter_fn(*item) for item in items]
 
-    if impl == "pallas" and image_mode == "nearest":
-        from xicsrt_tpu.ops.pallas_binning import bin_image_pallas
-
-        return [
-            bin_image_pallas(x, m, w, nx, ny, float(ps))
-            for (x, m, w, nx, ny, ps) in items
-        ]
-
-    # The matmul form costs O(rays * nx * ny) MACs — past ~2^18 bins the
-    # MXU work exceeds the serialized scatter. Route huge images (rare:
-    # megapixel detectors) through scatter and keep the fused pass for the
-    # rest.
+    # The matmul form costs O(rays * nx * ny) multiply-adds. Route huge
+    # images (megapixel detectors) through scatter and keep the fused pass
+    # for the rest.
     big = [item[3] * item[4] > (1 << 18) for item in items]
     if any(big):
         small_items = [it for it, b in zip(items, big) if not b]
         small_out = iter(
-            bin_images_fused(small_items, image_mode, chunk, impl, op_dtype)
+            bin_images_fused(small_items, image_mode, chunk, op_dtype,
+                             platform)
         )
         return [
             scatter_fn(*it) if b else next(small_out)
@@ -393,6 +407,7 @@ def bin_images_fused(items: list, image_mode: str = "nearest",
                 + jax.lax.dot_general(
                     (tx * wc[:, None]).astype(op_dtype), ty.astype(op_dtype),
                     dimension_numbers=(((0,), (0,)), ((), ())),
+                    precision=_PRECISION,
                     preferred_element_type=acc_dtype,
                 ).astype(dtype)
             )
@@ -406,17 +421,15 @@ def bin_images_fused(items: list, image_mode: str = "nearest",
     return list(images)
 
 
-def select_bin_fn(image_mode: str):
-    """Pick the binning implementation for the current backend.
-
-    TPU: scatter-add serializes (~50x the whole trace pipeline), so both
-    modes use the factorized-matmul form. CPU: scatter is fast and avoids
-    the O(nx*ny) matmul work.
-    """
-    on_cpu = jax.default_backend() == "cpu"
+def select_bin_fn(image_mode: str, platform: str | None = None):
+    """The single-image binning function for a platform (default: JAX's
+    default backend), chosen by ``binning_route``."""
+    if platform is None:
+        platform = jax.default_backend()
+    scatter = binning_route(platform) == "scatter"
     if image_mode == "bilinear":
-        return bin_image_bilinear if on_cpu else bin_image_bilinear_matmul
-    return bin_image if on_cpu else bin_image_matmul
+        return bin_image_bilinear if scatter else bin_image_bilinear_matmul
+    return bin_image if scatter else bin_image_matmul
 
 
 def bin_image_bilinear(

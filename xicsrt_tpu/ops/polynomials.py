@@ -1,13 +1,12 @@
 """Vectorized closed-form polynomial solvers (quadratic/cubic/quartic).
 
-TPU-native replacement for ``xicsrt/tools/xicssrt_quartic.py`` (reference cites
+Vectorized replacement for ``xicsrt/tools/xicssrt_quartic.py`` (reference cites
 NKrvavica/fqs). Design differences from the reference:
 
-- pure real arithmetic with validity masks instead of complex dtypes (complex
-  math maps poorly onto the VPU);
+- pure real arithmetic with validity masks instead of complex dtypes;
 - branch-free ``where`` selection instead of boolean indexing (static shapes);
 - every root gets a final Newton polish on the original quartic so that
-  float32 on TPU reaches the accuracy the reference only gets from float64
+  float32 reaches the accuracy the reference only gets from float64
   (see SURVEY.md section 7.3 item 2);
 - real roots are returned in ascending order with NaN (missing/complex roots)
   sorted last. For a ray approaching a torus from outside this matches the
@@ -17,7 +16,6 @@ NKrvavica/fqs). Design differences from the reference:
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 _TINY = 1e-30
@@ -50,30 +48,11 @@ def _cbrt(x):
     return jnp.sign(x) * jnp.abs(x) ** (1.0 / 3.0)
 
 
-def acos_kernel(x):
-    """Mosaic-safe arccos: Abramowitz–Stegun 4.4.45 polynomial + one Newton
-    step on cos(theta) = x. Max error ~1e-7 rad — inside a Pallas TPU kernel
-    ``jnp.arccos`` has no lowering; downstream Newton polish (quartic roots)
-    absorbs the residual. Accepts x in [-1, 1]."""
-    ax = jnp.clip(jnp.abs(x), 0.0, 1.0)
-    p = jnp.asarray(-0.0012624911, ax.dtype)
-    for coef in (0.0066700901, -0.0170881256, 0.0308918810, -0.0501743046,
-                 0.0889789874, -0.2145988016, 1.5707963050):
-        p = p * ax + coef
-    theta = p * jnp.sqrt(jnp.maximum(1.0 - ax, 0.0))
-    s = jnp.sin(theta)
-    theta = theta + (jnp.cos(theta) - ax) / jnp.maximum(s, 1e-6)
-    import math as _math
-
-    return jnp.where(x >= 0.0, theta, _math.pi - theta)
-
-
-def cubic_largest_real_root(b, c, d, acos=jnp.arccos):
+def cubic_largest_real_root(b, c, d):
     """Largest real root of x^3 + b x^2 + c x + d = 0, elementwise.
 
     Cardano for the single-real-root case; trigonometric form for three real
     roots. Both branches are evaluated and selected with ``where``.
-    ``acos``: override with :func:`acos_kernel` inside Pallas kernels.
     """
     # Depressed cubic t^3 + P t + Q with x = t - b/3.
     b2 = b * b
@@ -91,7 +70,7 @@ def cubic_largest_real_root(b, c, d, acos=jnp.arccos):
     # Three real roots (disc < 0): largest is 2 sqrt(-P/3) cos(theta/3).
     rho = jnp.sqrt(jnp.maximum(-third_p, _TINY))
     cos_arg = jnp.clip(-half_q / jnp.maximum(rho**3, _TINY), -1.0, 1.0)
-    theta = acos(cos_arg)
+    theta = jnp.arccos(cos_arg)
     t_three = 2.0 * rho * jnp.cos(theta / 3.0)
 
     t = jnp.where(disc >= 0.0, t_one, t_three)
@@ -114,10 +93,9 @@ def _quartic_newton_polish(x, c0, c1, c2, c3, c4, iters=2):
     return x
 
 
-def solve_quartic_unsorted(c0, c1, c2, c3, c4, acos=jnp.arccos):
+def solve_quartic_unsorted(c0, c1, c2, c3, c4):
     """Real roots of c0 x^4 + ... + c4, elementwise; list of 4 unsorted
-    arrays, NaN where complex. Kernel-safe with ``acos=acos_kernel`` (no
-    stacking/sorting, which Pallas TPU cannot lower on the minor axis).
+    arrays, NaN where complex.
     """
     inv_c0 = 1.0 / jnp.where(jnp.abs(c0) > _TINY, c0, _TINY)
     a = c1 * inv_c0
@@ -132,7 +110,7 @@ def solve_quartic_unsorted(c0, c1, c2, c3, c4, acos=jnp.arccos):
     r = d - a * c / 4.0 + a2 * b / 16.0 - 3.0 * a2 * a2 / 256.0
 
     # Resolvent cubic: m^3 + p m^2 + (p^2/4 - r) m - q^2/8 = 0.
-    m = cubic_largest_real_root(p, 0.25 * p * p - r, -q * q / 8.0, acos=acos)
+    m = cubic_largest_real_root(p, 0.25 * p * p - r, -q * q / 8.0)
     m = jnp.maximum(m, 0.0)
 
     s2 = 2.0 * m

@@ -1,6 +1,6 @@
 """Angular emission samplers (stateless, fixed-shape, differentiable).
 
-TPU-native replacement for ``xicsrt/tools/xicsrt_spread.py``. All samplers
+Vectorized replacement for ``xicsrt/tools/xicsrt_spread.py``. All samplers
 take an explicit ``jax.random`` key and a *static* count ``n`` and return
 ``[n, 3]`` unit vectors whose mean emission axis is +z.
 

@@ -1,6 +1,6 @@
 """Vector math primitives (jnp, stateless).
 
-TPU-native replacements for the reference ``xicsrt/tools/xicsrt_math.py``:
+Vectorized replacements for the reference ``xicsrt/tools/xicsrt_math.py``:
 everything is batched over the leading ray axis, branch-free, and safe to
 differentiate (no NaN-producing normalizations on masked lanes).
 """
@@ -95,9 +95,9 @@ def rotate_to_frame(local_dirs: jax.Array, basis: jax.Array) -> jax.Array:
 
     ``local_dirs``: [N,3]; ``basis``: [N,3,3] rows (x,y,z) -> returns [N,3]
     global vectors. Equivalent of ``einsum('ij,ijk->ik', dir_local, R)``,
-    written elementwise so it runs on the VPU at full precision (a K=3
-    dot_general would hit the MXU at bf16 input precision on TPU, which is
-    fatal for Bragg-scale angular accuracy).
+    written elementwise so it runs at full precision (a K=3 dot_general
+    may run at reduced input precision, TF32 on a GPU, which is fatal for
+    Bragg-scale angular accuracy).
     """
     return jnp.sum(local_dirs[:, :, None] * basis, axis=1)
 

@@ -2,7 +2,7 @@
 
 Replaces ``xicsrt/tools/xicsrt_voigt.py``: the CDF table is precomputed once
 on the host (float64, scipy Faddeeva function) and inverse-transform sampling
-runs on device as a fixed-shape ``jnp.interp`` — the TPU analog of the
+runs on device as a fixed-shape ``jnp.interp`` — the device analog of the
 reference's tabulated-CDF `voigt_random` (:119-130).
 """
 

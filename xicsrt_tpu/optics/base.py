@@ -1,6 +1,6 @@
 """Optic base: frame + bounds + aperture + image grid.
 
-TPU-native analog of ``xicsrt/optics/_TraceObject.py``. A concrete optic is a
+Functional analog of ``xicsrt/optics/_TraceObject.py``. A concrete optic is a
 Shape mixin x Interact mixin (same composition pattern as the reference,
 ``optics/_TraceObject.py:157-172``), but the composition is *compiled*: an
 optic exports a pure function ``trace(params, rays, key) -> (rays, x_local)``

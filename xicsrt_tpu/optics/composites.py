@@ -3,7 +3,7 @@
 Same composition grid as the reference's 19 composite classes (grep
 ``class Xicsrt`` under ``xicsrt/optics/``); each class here is registered
 under its reference ``class_name`` so reference configs run unchanged, plus
-a short TPU-native alias.
+a short alias.
 """
 
 from __future__ import annotations

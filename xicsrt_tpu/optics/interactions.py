@@ -7,7 +7,7 @@ Physics matches the reference interactions:
 - mosaic: fixed-depth multi-layer crystallite model
   (``optics/_InteractMosaicCrystal.py:53-139``)
 
-TPU-first differences:
+Differences from the reference:
 
 - randomness is an explicit key (no global RNG state);
 - two acceptance modes: ``mc`` reproduces the reference's Bernoulli

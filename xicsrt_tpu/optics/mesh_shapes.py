@@ -1,12 +1,12 @@
 """Triangle-mesh optics.
 
-TPU-native replacement for ``xicsrt/optics/_ShapeMesh.py`` and the
+Vectorized replacement for ``xicsrt/optics/_ShapeMesh.py`` and the
 sphere/cylinder/torus mesh generators. Two intersection paths:
 
 - **Refine path** (default when a coarse mesh is available, mirroring the
   reference's refinement semantics ``_ShapeMesh.py:350-475``): the
   reference prunes candidate faces with a cKDTree around a coarse-mesh
-  hit; pointer-chasing trees do not map to TPU, so the pruning structure
+  hit; pointer-chasing trees do not map to fixed-shape array code, so the pruning structure
   here is a *uniform 2D grid* over the mesh's local x-y footprint, built
   on the host at setup. On device: rays are transformed to the mesh local
   frame, intersected densely against the (tiny) coarse mesh, the hit's
@@ -311,7 +311,7 @@ class ShapeMesh(TraceElement):
     def _build_grid(self):
         """Host-side uniform grid over the local x-y mesh footprint.
 
-        TPU-native stand-in for the reference's cKDTree candidate lookup
+        Fixed-shape stand-in for the reference's cKDTree candidate lookup
         (``_ShapeMesh.py:464-475``): each cell stores the indices of every
         face whose x-y bounding box overlaps the cell expanded by
         ``mesh_grid_margin`` cells, padded to the max count with a sentinel

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from xicsrt_tpu.ops import polynomials as poly
@@ -204,7 +205,11 @@ class ShapeTorus(TraceElement):
                 + (r_maj**2 - r_min**2) ** 2
             )
 
-            roots = poly.solve_quartic(c0, c1, c2, c3, c4)
+            # The solver's branches (sqrt/cbrt/arccos at their singular
+            # points) have no usable derivative; gradients of the root come
+            # from the implicit function theorem below instead.
+            roots = jax.lax.stop_gradient(
+                poly.solve_quartic(c0, c1, c2, c3, c4))
             cand = roots + t_shift[:, None]  # distances along the ray
 
             # Root selection: of the positive real intersections, take the
@@ -220,9 +225,15 @@ class ShapeTorus(TraceElement):
             score = jnp.where(valid, jnp.abs(z_local), jnp.inf)
             k = jnp.argmin(score, axis=-1)
             rows = jnp.arange(cand.shape[0])
-            dist = cand[rows, k]
             m = rays.mask & valid[rows, k]
-            dist = jnp.where(m, dist, 0.0)
+            # dy/dc = -(df/dc) / f'(y) at the root y of f: a Newton step
+            # whose value is exactly zero carries that derivative.
+            y = jnp.where(m, roots[rows, k], 0.0)
+            f = (((c0 * y + c1) * y + c2) * y + c3) * y + c4
+            df = ((4.0 * c0 * y + 3.0 * c1) * y + 2.0 * c2) * y + c3
+            df = jnp.where(jnp.abs(df) > 1e-30, df, 1.0)
+            y = y - (f - jax.lax.stop_gradient(f)) / df
+            dist = jnp.where(m, y + t_shift, 0.0)
 
             # Normal (global frame): project the hit onto the torus axis
             # circle and point from the tube center to the hit.

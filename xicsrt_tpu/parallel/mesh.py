@@ -7,20 +7,20 @@ back) and its slurm-array multi-node recipe with one in-program mechanism:
 - the ray batch axis is sharded over a 1-D ``rays`` mesh via ``shard_map``;
 - every device folds its mesh position into the RNG key, so the sharded run
   draws *different* rays per device while remaining reproducible;
-- detector images and meta counters are ``psum``-reduced across the mesh over
-  ICI — the in-program equivalent of ``combine_raytrace``'s image/meta sums
+- detector images and meta counters are ``psum``-reduced across the mesh
+  (NCCL over NVLink between the cards of one host) — the in-program
+  equivalent of ``combine_raytrace``'s image/meta sums
   (``xicsrt_raytrace.py:327-354``);
 - ray history (the only gather-shaped output) stays device-sharded on axis 0
   and materializes as a global array only if the host reads it.
 
 Multi-host: initialize ``jax.distributed`` before building the mesh and pass
-the global device list; the same code then spans DCN.
+the global device list; the same code then spans hosts.
 """
 
 from __future__ import annotations
 
 import logging
-import math
 
 import jax
 import numpy as np
@@ -37,11 +37,13 @@ def init_multihost(coordinator_address: str | None = None,
                    process_id: int | None = None) -> dict:
     """Initialize the multi-host distributed runtime (idempotent).
 
-    Thin wrapper over ``jax.distributed.initialize``: on TPU pods the
-    arguments are auto-detected from the environment, on other setups pass
-    them explicitly. After this, ``ray_mesh()`` spans all *global* devices
-    and the engine's psum reductions ride ICI within a slice and DCN across
-    slices — replacing the reference's slurm-array + offline-merge recipe
+    Thin wrapper over ``jax.distributed.initialize``. Pass the coordinator
+    address (``host:port``), the process count and this process's id; only
+    cluster managers that JAX recognises supply them from the environment.
+    After this, ``ray_mesh()`` spans all *global* devices and the engine's
+    psum reductions run as NCCL collectives: over NVLink between the cards
+    of one host, over the network between hosts — replacing the
+    reference's slurm-array + offline-merge recipe
     (``doc_source/userguide/multiple_processors.rst:27-78``).
 
     Returns ``{"process_index", "process_count", "num_devices",
@@ -76,7 +78,10 @@ def init_multihost(coordinator_address: str | None = None,
 
 
 def ray_mesh(n_devices: int | None = None, devices=None) -> Mesh:
-    """A 1-D mesh over the ray axis."""
+    """A 1-D mesh over the ray axis, one shard per device.
+
+    The cards of one host are joined all to all, so the mesh follows the
+    ray split alone and needs no topology-shaped device order."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
@@ -136,21 +141,13 @@ def _shard_intensity(config: dict, n_devices: int) -> dict:
 def make_sharded_run(config: dict, num_iter: int | None = None,
                      mesh: Mesh | None = None, n_devices: int | None = None,
                      keep_history: bool | None = None,
-                     keep_images: bool | None = None,
-                     engine: str | None = None):
+                     keep_images: bool | None = None):
     """Compile a full multi-iteration run sharded over the ray axis.
 
     Returns ``(jitted_fn, pipeline, mesh)`` where ``jitted_fn(params, key)``
     produces the same output pytree as ``Pipeline.make_run`` but with rays
     split across devices: meta/image are globally reduced, history arrays are
     sharded on axis 0.
-
-    ``engine`` (default ``general.engine``): ``'fused'``/``'auto'`` wraps
-    the single-kernel Pallas engine in ``shard_map`` — each device seeds its
-    own hardware-PRNG stream from the mesh position, traces its share of the
-    photon load and psums counts/images, so the fast path and the multi-chip
-    path compose. ``'auto'`` falls back to the XLA engine outside the fused
-    subset or when history is kept.
     """
     if mesh is None:
         mesh = ray_mesh(n_devices)
@@ -162,96 +159,7 @@ def make_sharded_run(config: dict, num_iter: int | None = None,
     if num_iter is None:
         num_iter = int(g["number_of_iter"])
     if keep_history is None:
-        keep_history = g["keep_history"]  # may be the string 'found'
-    if engine is None:
-        engine = str(g.get("engine", "xla")).lower()
-
-    # 'found' / 'sampled': the fused engine's bounded in-kernel
-    # reservoirs; each device fills its own slots and the history arrays
-    # shard on axis 0.
-    kh_mode = (keep_history.lower()
-               if isinstance(keep_history, str) else None)
-    fused_history = kh_mode in ("found", "sampled")
-    if engine in ("fused", "auto") and (not keep_history or fused_history):
-        from xicsrt_tpu.ops.fused_trace import (
-            FusedUnsupported, build_fast_run,
-        )
-
-        try:
-            fused, _kind = build_fast_run(
-                pipeline, num_iter=num_iter,
-                interpret=jax.default_backend() != "tpu",
-                history_slots=(int(g.get("history_found_slots") or 8)
-                               if kh_mode == "found" else None),
-                history_mode=kh_mode or "found",
-            )
-        except FusedUnsupported as err:
-            if engine == "fused":
-                raise
-            if fused_history:
-                # No bounded reservoir on the XLA fallback: 'found' /
-                # 'sampled' degrade to FULL per-ray history (engine.py).
-                log.warning(
-                    "fused engine unavailable (%s); keep_history=%r "
-                    "degrades to FULL per-ray history on the sharded XLA "
-                    "engine (unbounded memory in num_rays*num_iter)",
-                    err, keep_history,
-                )
-            else:
-                log.info("fused engine unavailable (%s); sharding the XLA "
-                         "engine", err)
-        else:
-            use_images = (bool(g["keep_images"]) if keep_images is None
-                          else keep_images)
-
-            def device_run_fused(key):
-                idx = jax.lax.axis_index("rays")
-                out = fused(jax.random.fold_in(key, idx))
-                meta = {k: jax.lax.psum(v, "rays")
-                        for k, v in out["meta"].items()}
-                image = ({k: jax.lax.psum(v, "rays")
-                          for k, v in out["image"].items()}
-                         if use_images else {})
-                return {"meta": meta, "image": image,
-                        "history": out["history"]}
-
-            meta_spec = ({k: P() for k in pipeline.element_names}
-                         if g.get("keep_meta", True) else {})
-            image_spec = ({k: P() for k in pipeline.image_specs()}
-                          if use_images else {})
-            hist_spec = ({k: pipeline_history_struct()
-                          for k in pipeline.element_names}
-                         if fused_history else {})
-            fn = shard_map(
-                device_run_fused,
-                mesh=mesh,
-                in_specs=(P(),),
-                out_specs={"meta": meta_spec, "image": image_spec,
-                           "history": hist_spec},
-                check_vma=False,
-            )
-            jitted = jax.jit(fn)
-            build_params = pipeline.params
-
-            def runner(params, key):
-                from xicsrt_tpu.engine import _params_match
-
-                if params is not build_params and not _params_match(
-                        params, build_params):
-                    raise ValueError(
-                        "engine='fused' bakes geometry in at build time; "
-                        "rebuild after changing params or use the XLA "
-                        "engine."
-                    )
-                return jitted(key)
-
-            return runner, pipeline, mesh
-    elif engine == "fused":
-        raise NotImplementedError(
-            "engine='fused' does not keep FULL ray history; set "
-            "keep_history=False, keep_history='found' (bounded "
-            "reservoir), or engine='auto' to fall back."
-        )
+        keep_history = bool(g["keep_history"])
 
     run_fn = pipeline.make_run(num_iter, keep_history=keep_history,
                                keep_images=keep_images)

@@ -2,7 +2,7 @@
 
 The reference stores rays as a dict-of-arrays (``xicsrt/objects/_RayArray.py:82-87``
 holds ``origin[N,3], direction[N,3], wavelength[N], mask[N]`` plus a ``weight[N]``
-added by sources). On TPU the same structure-of-arrays layout becomes a frozen
+added by sources). Here the same structure-of-arrays layout becomes a frozen
 dataclass pytree with a *static* leading dimension ``N``: dead rays are masked,
 never compacted, so every kernel sees fixed shapes and XLA can fuse the whole
 optic chain.

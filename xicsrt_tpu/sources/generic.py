@@ -1,6 +1,6 @@
 """Volumetric ray sources.
 
-TPU-native rebuild of ``xicsrt/sources/_XicsrtSourceGeneric.py`` (and the
+Vectorized rebuild of ``xicsrt/sources/_XicsrtSourceGeneric.py`` (and the
 Directed/Focused variants): a source compiles to a pure function
 ``generate(params, key) -> Rays`` with a *static* ray budget. Poisson ray
 counts (``use_poisson``) are drawn on device and realized by masking the

@@ -1,6 +1,6 @@
 """Plasma sources: real-units photon emission from bundle distributions.
 
-TPU-native rebuild of ``xicsrt/sources/_XicsrtPlasmaGeneric.py`` and its
+Vectorized rebuild of ``xicsrt/sources/_XicsrtPlasmaGeneric.py`` and its
 profile subclasses. The reference instantiates one ``XicsrtSourceFocused``
 object *per bundle* in a Python loop (``create_sources`` :286-345 — a
 measured hot spot); here the whole pipeline is one fixed-shape device
@@ -74,12 +74,6 @@ class PlasmaGeneric(SourceGeneric):
         config["bundle_count"] = None
         config["max_rays"] = int(1e7)
         config["max_bundles"] = int(1e7)
-        # 'auto' | 'matmul' | 'gather': how per-ray bundle attributes are
-        # assembled. TPU gathers cost ~55 ns/element (measured: 300 ms of a
-        # 390 ms generate at N=5.6e6); 'matmul' contracts an interval
-        # one-hot against the bundle table on the MXU instead. 'auto' picks
-        # matmul on TPU when bundle_count <= 4096.
-        config["bundle_gather"] = "auto"
         # intensity/use_poisson inherited; plasma determines intensity itself.
         config["use_poisson"] = True
         return config
@@ -201,8 +195,7 @@ class PlasmaGeneric(SourceGeneric):
         Constant profiles read emissivity/temperature from the params
         pytree, so ``jax.grad`` flows through temperature into the
         Doppler width (emissivity reaches only the integer photon
-        counts, which have no gradient — the fused-grad path
-        differentiates emissivity through ray weights instead)."""
+        counts, which have no gradient)."""
 
         def profiles(params, origin_global, origin_local, key):
             B = origin_global.shape[0]
@@ -229,13 +222,13 @@ class PlasmaGeneric(SourceGeneric):
 
     # ------------------------------------------------------------------
     def make_bundle_tables(self, filter_fns=None):
-        """Per-bundle sampling stage, shared by the XLA generator and the
-        fused megakernel: bundle origins, profiles, filters, photon rates
-        and Poisson counts — everything O(bundle_count).
+        """Per-bundle sampling stage of the generator: bundle origins,
+        profiles, filters, photon rates and Poisson counts — everything
+        O(bundle_count).
 
         Returns ``fn(params, filter_params, k_bundle, k_prof, k_counts)
         -> (cum, table, total)`` with ``cum`` (B,) int32 inclusive
-        cumulative counts, ``table`` (B, 8) f32 columns
+        cumulative counts, ``table`` (B, 8) columns in the source dtype
         [origin xyz, spread, temperature, velocity xyz], and ``total``
         the realized photon count.
         """
@@ -288,10 +281,10 @@ class PlasmaGeneric(SourceGeneric):
             cum = jnp.cumsum(counts).astype(jnp.int32)
             table = jnp.concatenate(
                 [
-                    b_origin.astype(jnp.float32),
-                    b_spread[:, None].astype(jnp.float32),
-                    prof["temperature"][:, None].astype(jnp.float32),
-                    prof["velocity"].astype(jnp.float32),
+                    b_origin.astype(dtype),
+                    b_spread[:, None].astype(dtype),
+                    prof["temperature"][:, None].astype(dtype),
+                    prof["velocity"].astype(dtype),
                 ],
                 axis=1,
             )  # (B, 8)
@@ -308,17 +301,6 @@ class PlasmaGeneric(SourceGeneric):
         gamma = self.gamma
         mass_number = float(self.param["mass_number"])
         bundle_tables = self.make_bundle_tables(filter_fns)
-        gather_mode = str(self.param.get("bundle_gather") or "auto").lower()
-        if gather_mode not in ("auto", "matmul", "gather"):
-            raise ValueError(f"Unknown bundle_gather: {gather_mode}")
-        if gather_mode == "auto":
-            # The one-hot contraction is O(N * B); beyond a few thousand
-            # bundles the (fast-on-CPU) gather wins even on TPU.
-            gather_mode = (
-                "matmul"
-                if jax.default_backend() == "tpu" and B <= 4096
-                else "gather"
-            )
 
         def generate(params, filter_params, key):
             frame = params["frame"]
@@ -331,31 +313,13 @@ class PlasmaGeneric(SourceGeneric):
             ray_idx = jnp.arange(N, dtype=jnp.int32)
             mask = ray_idx < jnp.minimum(total, N)
 
-            if gather_mode == "matmul":
-                # Interval-one-hot contraction on the MXU (Pallas kernel,
-                # ops/bundle_gather.py): every per-bundle attribute a ray
-                # needs rides one (8, B) x (B, sub) matvec whose one-hot
-                # operand never leaves VMEM. Bit-identical to the indexed
-                # gather; rays past the realized total get zero rows
-                # (masked below anyway).
-                from xicsrt_tpu.ops.bundle_gather import interval_gather
-
-                attrs = interval_gather(
-                    cum, table, N,
-                    interpret=jax.default_backend() != "tpu",
-                ).astype(dtype)
-                r_origin = attrs[:, 0:3]
-                theta = attrs[:, 3]
-                r_temp = attrs[:, 4]
-                r_vel = attrs[:, 5:8]
-            else:
-                bundle_id = jnp.searchsorted(cum, ray_idx, side="right")
-                bundle_id = jnp.clip(bundle_id, 0, B - 1)
-                attrs = table.astype(dtype)[bundle_id]
-                r_origin = attrs[:, 0:3]
-                theta = attrs[:, 3]
-                r_temp = attrs[:, 4]
-                r_vel = attrs[:, 5:8]
+            bundle_id = jnp.searchsorted(cum, ray_idx, side="right")
+            bundle_id = jnp.clip(bundle_id, 0, B - 1)
+            attrs = table[bundle_id]
+            r_origin = attrs[:, 0:3]
+            theta = attrs[:, 3]
+            r_temp = attrs[:, 4]
+            r_vel = attrs[:, 5:8]
 
             # --- ray origins --------------------------------------------
             if voxel > 0.0:
